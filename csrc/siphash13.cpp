@@ -1,5 +1,5 @@
 // Batch SipHash-1-3 (Rust DefaultHasher) — native fast path for k-mer
-// hashing. Bit-compatible with allwave_tpu/hashing/siphash.py (which is
+// hashing. Bit-compatible with allwave/hashing/siphash.py (which is
 // the test oracle): keys k0=k1=0, standard SipHash padding, and the Rust
 // `Hash for [u8]` discipline (8-byte LE usize length prefix + bytes).
 //

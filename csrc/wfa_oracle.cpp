@@ -3,7 +3,7 @@
 //
 // Fresh implementation of the wavefront recurrences (Marco-Sola et al.
 // 2021/2023) — NOT derived from WFA2-lib. Semantics and tie-breaking are
-// identical to allwave_tpu/wfa/reference_impl.py (the Python oracle):
+// identical to allwave/wfa/reference_impl.py (the Python oracle):
 //   * pattern = query (v), text = target (h), diagonal k = h - v,
 //     offsets store h; lower score better; match cost 0.
 //   * CIGAR bytes in the WFA2 convention: M/X, 'I' consumes target,

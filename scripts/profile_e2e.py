@@ -12,11 +12,11 @@ from collections import defaultdict
 
 import numpy as np
 
-from allwave_tpu.core.scores import parse_scores
-from allwave_tpu.core.types import NoSparsification
-from allwave_tpu.engine.pipeline import AllPairAligner
-from allwave_tpu.testing.synth import MutationConfig, make_test_case
-from allwave_tpu.wfa import dense_engine as DE
+from allwave.core.scores import parse_scores
+from allwave.core.types import NoSparsification
+from allwave.engine.pipeline import AllPairAligner
+from allwave.testing.synth import MutationConfig, make_test_case
+from allwave.wfa import dense_engine as DE
 
 T = defaultdict(float)
 C = defaultdict(int)
@@ -59,7 +59,7 @@ def main():
 
     # split collect into the device wait/transfer (np.asarray) and the
     # host-side unpack that follows it
-    import allwave_tpu.utils.telemetry as TEL
+    import allwave.utils.telemetry as TEL
 
     orig_td = TEL.timed_dispatch
 

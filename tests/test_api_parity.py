@@ -5,9 +5,9 @@ align_sequences)."""
 import numpy as np
 import pytest
 
-import allwave_tpu as aw
-from allwave_tpu.core.types import AlignmentMode, AlignmentParams, Sequence
-from allwave_tpu.wfa.simple import (
+import allwave as aw
+from allwave.core.types import AlignmentMode, AlignmentParams, Sequence
+from allwave.wfa.simple import (
     SimplePenalties,
     align_pair,
     align_sequences,
@@ -45,7 +45,7 @@ def test_align_pair_forward():
 
 
 def test_align_pair_reverse_orientation():
-    from allwave_tpu.orient.orientation import reverse_complement
+    from allwave.orient.orientation import reverse_complement
 
     rng = np.random.RandomState(0)
     t = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=400).tobytes()
@@ -56,7 +56,7 @@ def test_align_pair_reverse_orientation():
 
 
 def test_align_pair_wfa_orientation():
-    from allwave_tpu.orient.orientation import reverse_complement
+    from allwave.orient.orientation import reverse_complement
 
     rng = np.random.RandomState(1)
     t = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=200).tobytes()
@@ -96,7 +96,7 @@ def test_align_sequences_standard_ins_del():
 
 def test_all_pair_iterator_alias():
     seqs = [Sequence("a", b"ACGTACGTACGTACGT"), Sequence("b", b"ACGTACGTACGTACGT")]
-    from allwave_tpu.core.types import NoSparsification
+    from allwave.core.types import NoSparsification
 
     it = aw.AllPairIterator.with_options(
         seqs, AlignmentParams.edit_distance(), True, True, NoSparsification()

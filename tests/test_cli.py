@@ -10,10 +10,10 @@ import sys
 import numpy as np
 import pytest
 
-from allwave_tpu.core.cigar import cigar_string_to_bytes, validate_cigar
-from allwave_tpu.core.types import Sequence
-from allwave_tpu.engine.fasta import read_fasta, write_fasta
-from allwave_tpu.testing.synth import MutationConfig, make_test_case, random_dna
+from allwave.core.cigar import cigar_string_to_bytes, validate_cigar
+from allwave.core.types import Sequence
+from allwave.engine.fasta import read_fasta, write_fasta
+from allwave.testing.synth import MutationConfig, make_test_case, random_dna
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -23,36 +23,27 @@ def run_cli(args, check=True, in_process=True):
     ~9 s jax import per test on this 1-core host (~90 s over the file),
     while main(argv) exercises the same argparse -> pipeline -> writer
     path. A couple of smoke tests keep in_process=False so the real
-    entry point (python -m allwave_tpu.cli) stays covered."""
+    entry point (python -m allwave.cli) stays covered."""
     if in_process:
         import io
         from contextlib import redirect_stderr, redirect_stdout
 
-        from allwave_tpu import cli as _cli
+        from allwave import cli as _cli
 
         out, err = io.StringIO(), io.StringIO()
-        old_plat = os.environ.get("ALLWAVE_PLATFORM")
-        os.environ["ALLWAVE_PLATFORM"] = "cpu"
-        try:
-            with redirect_stdout(out), redirect_stderr(err):
-                try:
-                    rc = _cli.main([str(a) for a in args])
-                except SystemExit as e:
-                    rc = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
-        finally:
-            if old_plat is None:
-                os.environ.pop("ALLWAVE_PLATFORM", None)
-            else:
-                os.environ["ALLWAVE_PLATFORM"] = old_plat
+        with redirect_stdout(out), redirect_stderr(err):
+            try:
+                rc = _cli.main([str(a) for a in args])
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
         proc = subprocess.CompletedProcess(
             list(args), rc, out.getvalue(), err.getvalue()
         )
     else:
         env = dict(os.environ)
-        env["ALLWAVE_PLATFORM"] = "cpu"
         env["JAX_PLATFORMS"] = "cpu"
         proc = subprocess.run(
-            [sys.executable, "-m", "allwave_tpu.cli", *args],
+            [sys.executable, "-m", "allwave.cli", *args],
             capture_output=True,
             text=True,
             cwd=REPO,
@@ -97,7 +88,7 @@ def parse_paf(text):
 
 def _replay(rec, seqs_by_id):
     """Replay a PAF record's CIGAR against the sequences."""
-    from allwave_tpu.orient.orientation import reverse_complement
+    from allwave.orient.orientation import reverse_complement
 
     q = seqs_by_id[rec["qname"]].seq
     t = seqs_by_id[rec["tname"]].seq
@@ -190,7 +181,7 @@ def test_exact_mutation_counts(tmp_path):
 def test_strand_detection(tmp_path):
     # reference: integration_tests.rs:443-555 — q and rc(q) vs target give
     # + and - with near-equal identity
-    from allwave_tpu.orient.orientation import reverse_complement
+    from allwave.orient.orientation import reverse_complement
 
     rng = np.random.RandomState(9)
     target = random_dna(rng, 600)
@@ -333,7 +324,7 @@ def test_edit_distance_scores(basic_case):
 
 
 def test_wfa_orientation_flag(tmp_path):
-    from allwave_tpu.orient.orientation import reverse_complement
+    from allwave.orient.orientation import reverse_complement
 
     rng = np.random.RandomState(31)
     t = random_dna(rng, 200)
@@ -350,14 +341,14 @@ def test_wfa_orientation_flag(tmp_path):
 
 
 def test_cli_module_entry_smoke():
-    """The real `python -m allwave_tpu.cli` entry point still parses
+    """The real `python -m allwave.cli` entry point still parses
     args and fails cleanly — the one remaining subprocess rung, kept
     cheap by exiting at argparse (no alignment, no device work)."""
     import subprocess
     import sys
 
     r = subprocess.run(
-        [sys.executable, "-m", "allwave_tpu.cli", "--help"],
+        [sys.executable, "-m", "allwave.cli", "--help"],
         capture_output=True,
         text=True,
         cwd=REPO,

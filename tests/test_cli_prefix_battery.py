@@ -1,6 +1,6 @@
 """The reference's prefix-filtering CLI battery, with its exact fixtures.
 
-Mirrors /root/reference/tests/integration_tests.rs:1240-1804
+Mirrors reference tests/integration_tests.rs:1240-1804
 (`test_keep_prefixes_filtering`, `test_exclude_prefixes_filtering`,
 `test_keep_prefixes_with_sparsification`): the same hand-written
 sequence sets, the same flag spellings (long and short forms), the same

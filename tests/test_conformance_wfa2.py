@@ -1,7 +1,7 @@
 """Golden conformance tests for the WFA2 engine conventions.
 
 The reference pins its DP-engine semantics with a set of debug binaries
-(/root/reference/tests/debug/, documented in tests/debug/README.md:48-54).
+(reference tests/debug/, documented in tests/debug/README.md:48-54).
 Each test here quotes one of those binaries' facts and asserts it
 END-TO-END through this framework's `align_pair` / `align_sequences` /
 PAF path, so a behavioral drift in any engine breaks a named test.
@@ -25,14 +25,14 @@ Facts encoded (reference file -> fact):
 import numpy as np
 import pytest
 
-from allwave_tpu.core.cigar import (
+from allwave.core.cigar import (
     cigar_bytes_to_string,
     parse_cigar_lengths,
     validate_cigar,
 )
-from allwave_tpu.core.paf import alignment_to_paf
-from allwave_tpu.core.scores import parse_scores
-from allwave_tpu.core.types import (
+from allwave.core.paf import alignment_to_paf
+from allwave.core.scores import parse_scores
+from allwave.core.types import (
     OP_D,
     OP_I,
     OP_M,
@@ -40,7 +40,7 @@ from allwave_tpu.core.types import (
     AlignmentMode,
     Sequence,
 )
-from allwave_tpu.wfa.simple import (
+from allwave.wfa.simple import (
     SimplePenalties,
     align_pair,
     align_sequences,
@@ -224,9 +224,9 @@ class TestPenaltyConstructors:
         """The O(s)-memory segmented engine (the biWFA-Ultralow analog,
         SURVEY §5) returns the identical score and CIGAR bytes as the
         one-shot dense engine on the same pair."""
-        from allwave_tpu.wfa.dense_engine import DenseBandAligner
-        from allwave_tpu.wfa.segmented import SegmentedConfig, SegmentedDenseAligner
-        from allwave_tpu.wfa.params import resolve_penalties
+        from allwave.wfa.dense_engine import DenseBandAligner
+        from allwave.wfa.segmented import SegmentedConfig, SegmentedDenseAligner
+        from allwave.wfa.params import resolve_penalties
 
         rng = np.random.RandomState(7)
         bases = np.frombuffer(b"ACGT", dtype=np.uint8)

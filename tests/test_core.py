@@ -7,7 +7,7 @@ validation_correct.rs:135-176) plus extra coverage of the PAF contract.
 import numpy as np
 import pytest
 
-from allwave_tpu.core.cigar import (
+from allwave.core.cigar import (
     cigar_bytes_to_string,
     cigar_string_to_bytes,
     count_cigar_operations,
@@ -15,9 +15,9 @@ from allwave_tpu.core.cigar import (
     run_length_encode,
     validate_cigar,
 )
-from allwave_tpu.core.paf import alignment_to_paf
-from allwave_tpu.core.scores import parse_ani_preset, parse_scores
-from allwave_tpu.core.types import (
+from allwave.core.paf import alignment_to_paf
+from allwave.core.scores import parse_ani_preset, parse_scores
+from allwave.core.types import (
     AlignmentMode,
     AlignmentParams,
     AlignmentResult,
@@ -192,7 +192,7 @@ def test_alignment_mode_edge_cases():
 
 
 def test_telemetry_counters():
-    from allwave_tpu.utils.telemetry import EngineCounters, counters
+    from allwave.utils.telemetry import EngineCounters, counters
 
     c = EngineCounters()
     c.add(pairs=4, cells=1000, device_seconds=0.5)
@@ -204,9 +204,9 @@ def test_telemetry_counters():
     assert c.snapshot()["pairs"] == 0
     # the process-wide instance accumulates from engine dispatches
     import numpy as np
-    from allwave_tpu.core.scores import parse_scores
-    from allwave_tpu.wfa.dense_engine import DenseBandAligner, DenseConfig
-    from allwave_tpu.wfa.params import resolve_penalties
+    from allwave.core.scores import parse_scores
+    from allwave.wfa.dense_engine import DenseBandAligner, DenseConfig
+    from allwave.wfa.params import resolve_penalties
 
     counters.reset()
     rng = np.random.RandomState(2)
@@ -214,7 +214,7 @@ def test_telemetry_counters():
     q = rng.choice(bases, 80).tobytes()
     al = DenseBandAligner(
         resolve_penalties(parse_scores("0,5,8,2,24,1")),
-        DenseConfig(impl="xla"),
+        DenseConfig(),
     )
     al.align_pairs([(q, q)])
     snap = counters.snapshot()

@@ -6,12 +6,12 @@ typical inputs."""
 import numpy as np
 import pytest
 
-from allwave_tpu.core.cigar import validate_cigar
-from allwave_tpu.core.scores import parse_scores
-from allwave_tpu.testing.dense import cigar_score, dense_score
-from allwave_tpu.wfa.dense_engine import DenseBandAligner, DenseConfig, UnifiedAligner
-from allwave_tpu.wfa.params import resolve_penalties
-from allwave_tpu.wfa.reference_impl import wfa_align
+from allwave.core.cigar import validate_cigar
+from allwave.core.scores import parse_scores
+from allwave.testing.dense import cigar_score, dense_score
+from allwave.wfa.dense_engine import DenseBandAligner, DenseConfig, UnifiedAligner
+from allwave.wfa.params import resolve_penalties
+from allwave.wfa.reference_impl import wfa_align
 
 EDIT = resolve_penalties(parse_scores("0,1,1,1"))
 AFFINE = resolve_penalties(parse_scores("0,5,8,2"))
@@ -137,10 +137,10 @@ def test_dense_random_vs_dense_dp(seed):
 
 def test_align_pairs_with_stats_matches_cigar_reductions():
     import numpy as np
-    from allwave_tpu.core.cigar import batch_cigar_stats
-    from allwave_tpu.core.scores import parse_scores
-    from allwave_tpu.wfa.dense_engine import UnifiedAligner
-    from allwave_tpu.wfa.params import resolve_penalties
+    from allwave.core.cigar import batch_cigar_stats
+    from allwave.core.scores import parse_scores
+    from allwave.wfa.dense_engine import UnifiedAligner
+    from allwave.wfa.params import resolve_penalties
 
     rng = np.random.RandomState(33)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -166,10 +166,10 @@ def test_segmented_engine_matches_one_shot():
     """Checkpoint-replay segmented alignment (tiny segments to force
     many boundary crossings) is bit-exact vs the one-shot engine."""
     import numpy as np
-    from allwave_tpu.core.scores import parse_scores
-    from allwave_tpu.wfa.dense_engine import DenseBandAligner, DenseConfig
-    from allwave_tpu.wfa.params import resolve_penalties
-    from allwave_tpu.wfa.segmented import (
+    from allwave.core.scores import parse_scores
+    from allwave.wfa.dense_engine import DenseBandAligner, DenseConfig
+    from allwave.wfa.params import resolve_penalties
+    from allwave.wfa.segmented import (
         SegmentedConfig,
         SegmentedDenseAligner,
     )
@@ -189,9 +189,9 @@ def test_segmented_engine_matches_one_shot():
             t = np.concatenate([t[:50], rng.choice(bases, 4), t[50:]])
             pairs.append((q.tobytes(), t.tobytes()))
         seg = SegmentedDenseAligner(
-            pen, SegmentedConfig(ckpt_every=128, impl="xla")
+            pen, SegmentedConfig(ckpt_every=128)
         )
-        one = DenseBandAligner(pen, DenseConfig(impl="xla"))
+        one = DenseBandAligner(pen, DenseConfig())
         a = seg.align_pairs(pairs)
         b = one.align_pairs(pairs)
         for x, y in zip(a, b):
@@ -205,19 +205,19 @@ def test_full_cover_band_certifies():
     """A band covering the whole DP matrix must certify even when the
     score exceeds the exit-and-return bound (highly divergent pair)."""
     import numpy as np
-    from allwave_tpu.core.scores import parse_scores
-    from allwave_tpu.wfa.dense_engine import DenseBandAligner, DenseConfig
-    from allwave_tpu.wfa.params import resolve_penalties
+    from allwave.core.scores import parse_scores
+    from allwave.wfa.dense_engine import DenseBandAligner, DenseConfig
+    from allwave.wfa.params import resolve_penalties
 
     rng = np.random.RandomState(11)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     q = rng.choice(bases, 200).tobytes()
     t = rng.choice(bases, 190).tobytes()  # unrelated: score ~ L*x
     pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
-    al = DenseBandAligner(pen, DenseConfig(impl="xla"))
+    al = DenseBandAligner(pen, DenseConfig())
     (res,) = al.align_pairs([(q, t)])
     assert res is not None
-    from allwave_tpu.core.cigar import validate_cigar
+    from allwave.core.cigar import validate_cigar
 
     validate_cigar(res[1], q, t)
 
@@ -230,10 +230,10 @@ def test_escalation_steps_to_next_ladder_rung():
     at K=12288, and 2*K=24576 > k_max skipped the 16384 rung that
     certifies it)."""
     import numpy as np
-    from allwave_tpu.core.scores import parse_scores
-    from allwave_tpu.wfa.dense_engine import DenseBandAligner, DenseConfig
-    from allwave_tpu.wfa.params import resolve_penalties
-    from allwave_tpu.core.cigar import validate_cigar
+    from allwave.core.scores import parse_scores
+    from allwave.wfa.dense_engine import DenseBandAligner, DenseConfig
+    from allwave.wfa.params import resolve_penalties
+    from allwave.core.cigar import validate_cigar
 
     rng = np.random.RandomState(7)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -243,12 +243,12 @@ def test_escalation_steps_to_next_ladder_rung():
     # start at rung 512; the only rung that can certify is 768 (=k_max);
     # the old 2*k rule jumped 512 -> 1024 > k_max and returned None
     al = DenseBandAligner(
-        pen, DenseConfig(impl="xla", k_initial=512, k_max=768)
+        pen, DenseConfig(k_initial=512, k_max=768)
     )
     (res,) = al.align_pairs([(q, t)])
     assert res is not None, "pair dropped by escalation overshoot"
     validate_cigar(res[1], q, t)
-    ref = DenseBandAligner(pen, DenseConfig(impl="xla")).align_pairs([(q, t)])[0]
+    ref = DenseBandAligner(pen, DenseConfig()).align_pairs([(q, t)])[0]
     assert res[0] == ref[0]
     np.testing.assert_array_equal(res[1], ref[1])
 

@@ -17,21 +17,19 @@ cases per full run (pytest tests/ -m "slow or not slow"), covering
 - empty-ish and wildly length-mismatched pairs.
 
 The default suite runs only shard 0 (fast tier); the full battery runs
-under the `slow` marker. An on-hardware variant of the same generator
-(scripts/fuzz_tpu.py) additionally covers the Pallas engines; its
-latest checked-in run artifact lives at tests/artifacts/.
+under the `slow` marker.
 """
 
 import numpy as np
 import pytest
 
-from allwave_tpu import native
-from allwave_tpu.core.cigar import validate_cigar
-from allwave_tpu.core.types import AlignmentParams
-from allwave_tpu.wfa.dense_engine import DenseBandAligner, DenseConfig
-from allwave_tpu.wfa.params import resolve_penalties
-from allwave_tpu.wfa.segmented import SegmentedDenseAligner, SegmentedConfig
-from allwave_tpu.wfa.wf_segmented import WavefrontSegmentedAligner, WfSegConfig
+from allwave import native
+from allwave.core.cigar import validate_cigar
+from allwave.core.types import AlignmentParams
+from allwave.wfa.dense_engine import DenseBandAligner, DenseConfig
+from allwave.wfa.params import resolve_penalties
+from allwave.wfa.segmented import SegmentedDenseAligner, SegmentedConfig
+from allwave.wfa.wf_segmented import WavefrontSegmentedAligner, WfSegConfig
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 NOISY = np.frombuffer(b"ACGTacgtNn", dtype=np.uint8)
@@ -105,7 +103,7 @@ def _rand_pair(rng, fast=False):
 
 def _check_dense_vs_oracle(pen, params, pairs):
     """Dense XLA engine vs native oracle, bit-for-bit; returns results."""
-    dense = DenseBandAligner(pen, DenseConfig(impl="xla"))
+    dense = DenseBandAligner(pen, DenseConfig())
     res = dense.align_pairs(pairs)
     for i, r in enumerate(res):
         assert r is not None, (params, i)
@@ -154,12 +152,11 @@ def _run_shard_inner(rng, n_rounds, pairs_per_round, with_segmented, fast):
         pairs = [_rand_pair(rng, fast) for _ in range(pairs_per_round)]
         res_d = _check_dense_vs_oracle(pen, params, pairs)
         seg = SegmentedDenseAligner(
-            pen, SegmentedConfig(impl="xla", ckpt_every=512)
+            pen, SegmentedConfig(ckpt_every=512)
         )
         wf = WavefrontSegmentedAligner(
             pen,
             WfSegConfig(k_max=1024, s_cap_max=2048, ckpt_every=128),
-            impl="xla",
         )
         res_s = seg.align_pairs(pairs)
         res_w = wf.align_pairs(pairs)

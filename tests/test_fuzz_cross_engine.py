@@ -2,19 +2,16 @@
 single-piece, two-piece), random mutation styles (identical, SNP+indel,
 unrelated, tandem-repeat tie stress, N/lowercase bytes) — the XLA
 engine, the batched pipeline path, and the native C++ oracle must agree
-bit-for-bit on scores and CIGARs, and every CIGAR must replay.
-
-A longer unseeded variant of this ran on real TPU hardware against the
-Pallas engine as well (211 mixed cases, 0 failures)."""
+bit-for-bit on scores and CIGARs, and every CIGAR must replay."""
 
 import numpy as np
 import pytest
 
-from allwave_tpu import native
-from allwave_tpu.core.cigar import validate_cigar
-from allwave_tpu.core.types import AlignmentParams
-from allwave_tpu.wfa.dense_engine import DenseBandAligner, DenseConfig
-from allwave_tpu.wfa.params import resolve_penalties
+from allwave import native
+from allwave.core.cigar import validate_cigar
+from allwave.core.types import AlignmentParams
+from allwave.wfa.dense_engine import DenseBandAligner, DenseConfig
+from allwave.wfa.params import resolve_penalties
 
 
 def _rand_params(rng):
@@ -74,7 +71,7 @@ def test_fuzz_engines_vs_oracle(seed):
     for _ in range(4):
         params = _rand_params(rng)
         pen = resolve_penalties(params)
-        eng = DenseBandAligner(pen, DenseConfig(impl="xla"))
+        eng = DenseBandAligner(pen, DenseConfig())
         pairs = [_rand_pair(rng, acgt, noisy) for _ in range(3)]
         results = eng.align_pairs(pairs)
         for i, r in enumerate(results):

@@ -9,11 +9,11 @@ inputs."""
 import numpy as np
 import pytest
 
-from allwave_tpu.core.cigar import validate_cigar
-from allwave_tpu.core.scores import parse_scores
-from allwave_tpu.core.types import NoSparsification
-from allwave_tpu.engine.pipeline import AllPairAligner
-from allwave_tpu.testing.synth import (
+from allwave.core.cigar import validate_cigar
+from allwave.core.scores import parse_scores
+from allwave.core.types import NoSparsification
+from allwave.engine.pipeline import AllPairAligner
+from allwave.testing.synth import (
     MutationConfig,
     make_test_case,
     mutate,
@@ -44,7 +44,7 @@ def _coverage(r, seqs):
 
 
 def _replay_all(results, seqs):
-    from allwave_tpu.orient.orientation import reverse_complement
+    from allwave.orient.orientation import reverse_complement
 
     for r in results:
         q = seqs[r.query_idx].seq
@@ -80,7 +80,7 @@ def test_cnv_scale_indels_detected():
     rng = np.random.RandomState(202)
     # scaled down from the reference's >=1000 bp threshold to keep the
     # CPU suite fast; the >=1000 bp CNV heuristic itself is ported (and
-    # unit-tested) in allwave_tpu.validation
+    # unit-tested) in allwave.validation
     base = random_dna(rng, 2500)
     mutated, muts = mutate(
         rng,
@@ -91,12 +91,12 @@ def test_cnv_scale_indels_detected():
             cnv_del_len=(500, 700),
         ),
     )
-    from allwave_tpu.core.types import Sequence
+    from allwave.core.types import Sequence
 
     seqs = [Sequence("base", base), Sequence("mut", mutated)]
     out = _align_all(seqs)
     _replay_all(out, seqs)
-    from allwave_tpu.core.cigar import run_length_encode
+    from allwave.core.cigar import run_length_encode
 
     found_long = False
     for r in out:
@@ -150,7 +150,7 @@ def test_tandem_repeats_and_homopolymers():
         + b"A" * 60
         + base[520:]
     )
-    from allwave_tpu.core.types import Sequence
+    from allwave.core.types import Sequence
 
     seqs = [Sequence("base", base), Sequence("var", varied)]
     out = _align_all(seqs)
@@ -165,7 +165,7 @@ def test_identical_sequences_are_perfect():
     give exactly 100% identity, full coverage, zero X/I/D ops."""
     rng = np.random.RandomState(505)
     s = random_dna(rng, 1500)
-    from allwave_tpu.core.types import Sequence
+    from allwave.core.types import Sequence
 
     seqs = [Sequence("a", s), Sequence("b", s)]
     out = _align_all(seqs)

@@ -25,7 +25,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 coord, nproc, pid, fasta, prefix = sys.argv[1:6]
 
-from allwave_tpu.parallel.dist import (
+from allwave.parallel.dist import (
     DistributedAllPairAligner,
     init_distributed,
 )
@@ -34,9 +34,9 @@ init_distributed(coord, int(nproc), int(pid))
 assert jax.process_count() == int(nproc), jax.process_count()
 assert jax.process_index() == int(pid), jax.process_index()
 
-from allwave_tpu.core.scores import parse_scores
-from allwave_tpu.core.types import NoSparsification
-from allwave_tpu.engine.fasta import read_fasta
+from allwave.core.scores import parse_scores
+from allwave.core.types import NoSparsification
+from allwave.engine.fasta import read_fasta
 
 seqs = read_fasta(fasta)
 al = DistributedAllPairAligner(
@@ -63,11 +63,10 @@ def _free_port() -> int:
 def test_two_process_jax_distributed_matches_single(tmp_path):
     # shared input FASTA
     gen = (
-        "from allwave_tpu.testing.synth import make_test_case; "
+        "from allwave.testing.synth import make_test_case; "
         f"make_test_case(seed=42, n_sequences=5, length=400).write_fasta(r'{tmp_path}/mh.fa')"
     )
     env = dict(os.environ)
-    env["ALLWAVE_PLATFORM"] = "cpu"
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("XLA_FLAGS", None)  # workers use plain 1-device CPU backends
     subprocess.run(
@@ -102,17 +101,17 @@ def test_two_process_jax_distributed_matches_single(tmp_path):
         assert p.returncode == 0, f"worker failed:\n{out}\n{err}"
 
     # merge shards
-    from allwave_tpu.parallel.dist import merge_paf_shards
+    from allwave.parallel.dist import merge_paf_shards
 
     merged = str(tmp_path / "merged.paf")
     merge_paf_shards(prefix, 2, merged)
 
     # single-process reference run (same process, CPU backend via conftest)
-    from allwave_tpu.core.paf import alignment_to_paf
-    from allwave_tpu.core.scores import parse_scores
-    from allwave_tpu.core.types import NoSparsification
-    from allwave_tpu.engine.fasta import read_fasta
-    from allwave_tpu.engine.pipeline import AllPairAligner
+    from allwave.core.paf import alignment_to_paf
+    from allwave.core.scores import parse_scores
+    from allwave.core.types import NoSparsification
+    from allwave.engine.fasta import read_fasta
+    from allwave.engine.pipeline import AllPairAligner
 
     seqs = read_fasta(fasta)
     single = []

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from allwave_tpu import native
-from allwave_tpu.core.scores import parse_scores
-from allwave_tpu.hashing.siphash import hash_kmers, siphash13
-from allwave_tpu.wfa.params import resolve_penalties
-from allwave_tpu.wfa.reference_impl import wfa_align
+from allwave import native
+from allwave.core.scores import parse_scores
+from allwave.hashing.siphash import hash_kmers, siphash13
+from allwave.wfa.params import resolve_penalties
+from allwave.wfa.reference_impl import wfa_align
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable"
@@ -63,8 +63,8 @@ def test_pair_filter_native_edge_ids():
     id, 1-byte id, id far longer than a SipHash block."""
     import numpy as np
 
-    import allwave_tpu.native as N
-    from allwave_tpu.hashing import siphash as S
+    import allwave.native as N
+    from allwave.hashing import siphash as S
 
     if not N.available():
         import pytest
@@ -91,9 +91,9 @@ def test_orient_pairs_native_short_sequences():
     self-pair -0.0 quirk included)."""
     import numpy as np
 
-    import allwave_tpu.native as N
-    from allwave_tpu.core.types import Sequence
-    from allwave_tpu.orient.orientation import OrientationIndex
+    import allwave.native as N
+    from allwave.core.types import Sequence
+    from allwave.orient.orientation import OrientationIndex
 
     if not N.available() or not hasattr(N.get_lib(), "orient_pairs"):
         import pytest
@@ -121,10 +121,10 @@ def test_batch_rle_matches_per_pair():
     import numpy as np
     import pytest
 
-    import allwave_tpu.native as N
-    from allwave_tpu.core.scores import parse_scores
-    from allwave_tpu.testing.synth import MutationConfig, make_test_case
-    from allwave_tpu.wfa.params import resolve_penalties
+    import allwave.native as N
+    from allwave.core.scores import parse_scores
+    from allwave.testing.synth import MutationConfig, make_test_case
+    from allwave.wfa.params import resolve_penalties
 
     if not N.available() or not hasattr(N.get_lib(), "wfa_align_batch_rle"):
         pytest.skip("native batch entry unavailable")
@@ -174,11 +174,11 @@ def test_host_route_results_identical():
     import numpy as np
     import pytest
 
-    import allwave_tpu.native as N
-    from allwave_tpu.core.scores import parse_scores
-    from allwave_tpu.testing.synth import MutationConfig, make_test_case
-    from allwave_tpu.wfa.dense_engine import UnifiedAligner
-    from allwave_tpu.wfa.params import resolve_penalties
+    import allwave.native as N
+    from allwave.core.scores import parse_scores
+    from allwave.testing.synth import MutationConfig, make_test_case
+    from allwave.wfa.dense_engine import UnifiedAligner
+    from allwave.wfa.params import resolve_penalties
 
     if not N.available() or not hasattr(N.get_lib(), "wfa_align_batch_rle"):
         pytest.skip("native batch entry unavailable")

@@ -3,8 +3,8 @@ mash-vs-WFA agreement suite in integration_tests.rs:865-1237)."""
 
 import numpy as np
 
-from allwave_tpu.core.types import Sequence
-from allwave_tpu.orient.orientation import (
+from allwave.core.types import Sequence
+from allwave.orient.orientation import (
     OrientationIndex,
     determine_orientation_mash,
     reverse_complement,
@@ -75,8 +75,8 @@ def test_orient_batch_matches_per_pair():
     """Vectorized orient_batch must make bit-identical decisions to the
     per-pair orient() path (same float64 Jaccard, tie -> forward)."""
     import numpy as np
-    from allwave_tpu.core.types import Sequence
-    from allwave_tpu.orient.orientation import (
+    from allwave.core.types import Sequence
+    from allwave.orient.orientation import (
         OrientationIndex,
         reverse_complement,
     )
@@ -104,8 +104,8 @@ def test_decision_matrix_blocked_matches_per_pair():
     """Force tiny target blocks: the blocked bitmap path must make
     identical decisions and distances to the single-block path."""
     import numpy as np
-    from allwave_tpu.core.types import Sequence
-    from allwave_tpu.orient.orientation import (
+    from allwave.core.types import Sequence
+    from allwave.orient.orientation import (
         OrientationIndex,
         reverse_complement,
     )
@@ -131,13 +131,13 @@ def test_decision_matrix_blocked_matches_per_pair():
 
 
 def test_decision_matrix_device_matches_numpy():
-    """The MXU-matmul decision path must be bit-identical to the
+    """The device-matmul decision path must be bit-identical to the
     blocked-bitmap NumPy path (exact integer cross-comparison vs f64
     Jaccard compare — see _decision_matrix_device's docstring)."""
     import numpy as np
 
-    from allwave_tpu.core.types import Sequence
-    from allwave_tpu.orient.orientation import OrientationIndex
+    from allwave.core.types import Sequence
+    from allwave.orient.orientation import OrientationIndex
 
     rng = np.random.RandomState(3)
     bases = np.frombuffer(b"ACGT", np.uint8)
@@ -167,9 +167,9 @@ def test_native_pair_path_matches_matrix():
     import numpy as np
     import pytest
 
-    from allwave_tpu import native
-    from allwave_tpu.core.types import Sequence
-    from allwave_tpu.orient.orientation import OrientationIndex
+    from allwave import native
+    from allwave.core.types import Sequence
+    from allwave.orient.orientation import OrientationIndex
 
     if not native.available() or native.get_lib() is None or not hasattr(
         native.get_lib(), "orient_pairs"

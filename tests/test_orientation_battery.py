@@ -1,6 +1,6 @@
 """The reference's 8-case mash-vs-WFA orientation agreement battery.
 
-Mirrors /root/reference/tests/integration_tests.rs:865-1237
+Mirrors reference tests/integration_tests.rs:865-1237
 (`test_orientation_detection_comparison` + `create_orientation_test_cases`):
 for each constructed case, BOTH orientation methods (MinHash stranded
 sketches and WFA edit distance) must pick the same strand, and that
@@ -23,12 +23,12 @@ structure, lengths, and rates are the contract being tested.
 import numpy as np
 import pytest
 
-from allwave_tpu.core.types import AlignmentParams
-from allwave_tpu.orient.orientation import (
+from allwave.core.types import AlignmentParams
+from allwave.orient.orientation import (
     determine_orientation_mash,
     reverse_complement,
 )
-from allwave_tpu.wfa.simple import _determine_orientation_wfa
+from allwave.wfa.simple import _determine_orientation_wfa
 
 _BASES = np.frombuffer(b"ATGC", dtype=np.uint8)
 

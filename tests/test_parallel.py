@@ -7,10 +7,10 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
-from allwave_tpu.core.scores import parse_scores
-from allwave_tpu.wfa import dense as D_
-from allwave_tpu.wfa.params import resolve_penalties
-from allwave_tpu.parallel.mesh import (
+from allwave.core.scores import parse_scores
+from allwave.wfa import dense as D_
+from allwave.wfa.params import resolve_penalties
+from allwave.parallel.mesh import (
     make_mesh,
     sharded_dense_step,
 )
@@ -40,7 +40,7 @@ def test_sharded_dense_step_matches_single_device():
     pool, qidx, tidx, qlens, tlens = _pool_batch(rng, 6, 100, l_pad, 16)
 
     mesh = make_mesh(8, diag=1)
-    step = sharded_dense_step(mesh, pen, K, l_pad, run_cap, impl="xla")
+    step = sharded_dense_step(mesh, pen, K, l_pad, run_cap)
     with mesh:
         sharded = np.asarray(
             step(
@@ -62,14 +62,13 @@ def test_sharded_dense_step_matches_single_device():
             K,
             l_pad,
             run_cap,
-            "xla",
         )
     )
     np.testing.assert_array_equal(sharded, single)
 
 
 def test_shard_pairs_partition_is_exact():
-    from allwave_tpu.parallel.dist import merge_paf_shards, shard_pairs
+    from allwave.parallel.dist import merge_paf_shards, shard_pairs
 
     pairs = np.arange(46).reshape(23, 2)
     shards = [shard_pairs(pairs, p, 4) for p in range(4)]
@@ -80,8 +79,8 @@ def test_shard_pairs_partition_is_exact():
 
 
 def test_distributed_aligner_single_process_covers_all(tmp_path):
-    from allwave_tpu.core.types import NoSparsification, Sequence
-    from allwave_tpu.parallel.dist import (
+    from allwave.core.types import NoSparsification, Sequence
+    from allwave.parallel.dist import (
         DistributedAllPairAligner,
         merge_paf_shards,
     )
@@ -113,11 +112,11 @@ def test_production_pipeline_uses_local_mesh_byte_identical(monkeypatch):
     single-device path."""
     import jax
 
-    from allwave_tpu.core.paf import alignment_to_paf
-    from allwave_tpu.core.scores import parse_scores
-    from allwave_tpu.core.types import NoSparsification
-    from allwave_tpu.engine.pipeline import AllPairAligner
-    from allwave_tpu.testing.synth import MutationConfig, make_test_case
+    from allwave.core.paf import alignment_to_paf
+    from allwave.core.scores import parse_scores
+    from allwave.core.types import NoSparsification
+    from allwave.engine.pipeline import AllPairAligner
+    from allwave.testing.synth import MutationConfig, make_test_case
 
     assert jax.local_device_count() >= 8  # conftest: 8 virtual devices
     cfg = MutationConfig(snp_rate=0.05, insertion_rate=0.002, deletion_rate=0.002)
@@ -136,7 +135,7 @@ def test_production_pipeline_uses_local_mesh_byte_identical(monkeypatch):
         al.for_each_with_callback(out.append)
         return sorted(alignment_to_paf(r, case.sequences) for r in out)
 
-    from allwave_tpu.wfa import dense_engine as DE
+    from allwave.wfa import dense_engine as DE
 
     calls = {"mesh": 0}
     orig = DE.DenseBandAligner._sharded_fn

@@ -13,7 +13,7 @@ agreement and structural properties below).
 import numpy as np
 import pytest
 
-from allwave_tpu.hashing.siphash import (
+from allwave.hashing.siphash import (
     hash_bytes_rust,
     hash_kmers,
     hash_str_rust,

@@ -4,8 +4,8 @@ import math
 
 import numpy as np
 
-from allwave_tpu.core.types import Sequence
-from allwave_tpu.sketch.minhash import (
+from allwave.core.types import Sequence
+from allwave.sketch.minhash import (
     KmerSketch,
     compute_distance_matrix,
     compute_distance_matrix_with_params,
@@ -119,8 +119,8 @@ def test_distance_matrix_bitmap_matches_per_pair():
     """The bitmap-intersection distance matrix must produce the exact
     float64 values of the per-pair jaccard path."""
     import numpy as np
-    from allwave_tpu.core.types import Sequence
-    from allwave_tpu.sketch.minhash import (
+    from allwave.core.types import Sequence
+    from allwave.sketch.minhash import (
         compute_distance_matrix_with_params,
         jaccard,
         mash_distance_from_jaccard,
@@ -147,12 +147,12 @@ def test_distance_matrix_bitmap_matches_per_pair():
 
 
 def test_intersection_counts_device_matches_numpy():
-    """The MXU membership-matmul intersection path must produce the
+    """The device membership-matmul intersection path must produce the
     exact integer counts of the bitmap path (downstream f64 mash values
     are then bit-identical)."""
     import numpy as np
 
-    from allwave_tpu.sketch.minhash import (
+    from allwave.sketch.minhash import (
         _intersection_counts_device,
         pairwise_intersection_counts,
         sketch_canonical,
@@ -169,7 +169,7 @@ def test_intersection_counts_device_matches_numpy():
         sketches.append(np.unique(sketch_canonical(t.tobytes(), 15, 1000)))
     sizes = np.array([s.size for s in sketches], dtype=np.int64)
     want = pairwise_intersection_counts(sketches)
-    got = _intersection_counts_device(sketches, sizes, force=True)
+    got = _intersection_counts_device(sketches, sizes)
     np.testing.assert_array_equal(want, got)
 
 
@@ -178,14 +178,14 @@ def test_bottom_k_matches_full_sort():
     stable sort + truncate (the reference semantics, mash.rs:103-106):
     duplicates kept, ascending, every length regime (n < k, n == k,
     n >> k), with N-runs and lowercase bases in the sequence."""
-    from allwave_tpu.sketch.minhash import (
+    from allwave.sketch.minhash import (
         _IS_DNA,
         _KMER_COMP,
         _valid_window_mask,
         sketch_canonical,
         sketch_stranded,
     )
-    from allwave_tpu.hashing.siphash import hash_kmers
+    from allwave.hashing.siphash import hash_kmers
 
     rng = np.random.RandomState(11)
     alpha = np.frombuffer(b"ACGTacgtNn", np.uint8)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from allwave_tpu.core.types import (
+from allwave.core.types import (
     AutoSparsification,
     ConnectivitySparsification,
     NoSparsification,
@@ -11,15 +11,15 @@ from allwave_tpu.core.types import (
     Sequence,
     TreeSampling,
 )
-from allwave_tpu.sparsify.knn import (
+from allwave.sparsify.knn import (
     build_knn_graph,
     estimate_knn_pair_count,
     estimate_tree_pair_count,
     extract_knn_pairs,
     extract_tree_pairs,
 )
-from allwave_tpu.sparsify.nj import TreeNode, extract_tree_pairs as nj_pairs, neighbor_joining
-from allwave_tpu.sparsify.pairs import (
+from allwave.sparsify.nj import TreeNode, extract_tree_pairs as nj_pairs, neighbor_joining
+from allwave.sparsify.pairs import (
     build_pairs,
     compute_connectivity_probability,
     generate_all_pairs,
@@ -219,7 +219,7 @@ def test_neighbor_joining_two():
 def test_parse_sparsification_legacy_connectivity():
     """The legacy `connectivity:<p>` spelling parses like `giant:<p>`
     (reference main.rs sparsification parser keeps both)."""
-    from allwave_tpu.sparsify.pairs import parse_sparsification
+    from allwave.sparsify.pairs import parse_sparsification
 
     a = parse_sparsification("connectivity:0.95")
     b = parse_sparsification("giant:0.95")

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from allwave_tpu.core.types import Sequence
-from allwave_tpu.validation import (
+from allwave.core.types import Sequence
+from allwave.validation import (
     AlignmentStats,
     PafRecord,
     calculate_alignment_stats,

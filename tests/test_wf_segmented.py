@@ -1,10 +1,10 @@
 """Wavefront checkpoint-replay engine (wfa/wf_segmented.py).
 
 The long-pair analog of the reference's always-on biWFA low-memory mode
-(/root/reference/src/alignment.rs:265-287): O(s*K) compute, O(s/C)
+(reference src/alignment.rs:265-287): O(s*K) compute, O(s/C)
 checkpoint memory, bit-exact scores AND CIGARs vs the dense engines.
 Includes the 100 kb end-to-end case from the reference suite
-(/root/reference/tests/integration_tests.rs:557-597).
+(reference tests/integration_tests.rs:557-597).
 """
 
 import os
@@ -12,10 +12,10 @@ import os
 import numpy as np
 import pytest
 
-from allwave_tpu.core.scores import parse_scores
-from allwave_tpu.wfa.params import resolve_penalties
-from allwave_tpu.wfa.dense_engine import DenseBandAligner, UnifiedAligner
-from allwave_tpu.wfa.wf_segmented import (
+from allwave.core.scores import parse_scores
+from allwave.wfa.params import resolve_penalties
+from allwave.wfa.dense_engine import DenseBandAligner, UnifiedAligner
+from allwave.wfa.wf_segmented import (
     WavefrontSegmentedAligner,
     WfSegConfig,
 )
@@ -113,12 +113,12 @@ def test_long_sequences_100kb():
     """Reference: tests/integration_tests.rs:557-597 — a 100 kb pair
     with SNPs + indels must align end-to-end with >95% coverage and a
     >95 kb alignment length."""
-    from allwave_tpu.core.cigar import (
+    from allwave.core.cigar import (
         count_cigar_operations,
         parse_cigar_lengths,
         validate_cigar,
     )
-    from allwave_tpu.testing.synth import MutationConfig, make_test_case
+    from allwave.testing.synth import MutationConfig, make_test_case
 
     cfg = MutationConfig(
         snp_rate=0.002,

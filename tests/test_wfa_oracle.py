@@ -4,15 +4,15 @@ validity, and exact-count behavior on hand-placed mutations."""
 import numpy as np
 import pytest
 
-from allwave_tpu.core.cigar import (
+from allwave.core.cigar import (
     cigar_bytes_to_string,
     count_cigar_operations,
     validate_cigar,
 )
-from allwave_tpu.core.scores import parse_scores
-from allwave_tpu.testing.dense import cigar_score, dense_score
-from allwave_tpu.wfa.params import resolve_penalties
-from allwave_tpu.wfa.reference_impl import wfa_align
+from allwave.core.scores import parse_scores
+from allwave.testing.dense import cigar_score, dense_score
+from allwave.wfa.params import resolve_penalties
+from allwave.wfa.reference_impl import wfa_align
 
 EDIT = resolve_penalties(parse_scores("0,1,1,1"))
 AFFINE = resolve_penalties(parse_scores("0,5,8,2"))
